@@ -1,4 +1,4 @@
-"""adaprox_tpu — a TPU-native adaptive proximal-algorithm framework.
+"""adaprox_tpu — an adaptive proximal-algorithm framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design with the capabilities of
 pylat/adaptive-proximal-algorithms (the official code of "Adaptive proximal
@@ -10,16 +10,15 @@ solvers for composite problems
 
 plus linesearch/backtracking baselines, oracle-call metering, the JSONL
 telemetry schema, and the full benchmark-problem suite — running as compiled
-``lax.scan``/``while_loop`` programs whose hot matvecs ride the MXU and whose
-sharded problems communicate only a handful of psum-reduced scalars per
+``lax.scan``/``while_loop`` programs on the GPU whose sharded problems communicate only a handful of psum-reduced scalars per
 iteration.
 
 Layout (see SURVEY.md for the reference layer map):
   ops/        function/operator calculus: prox library, smooth oracles,
-              linear operators, fused Pallas kernels
+              linear operators, the one-pass GPU kernel
   solvers/    stepsize rules + the 12 solver entry points
   models/     benchmark objectives and problem generators
-  parallel/   mesh/sharding helpers for multi-chip execution
+  parallel/   mesh/sharding helpers for multi-device execution
   utils/      counting wrappers, JSONL telemetry, LIBSVM IO
   experiments/ the reference experiment grid, reproduced end to end
 """
@@ -47,7 +46,6 @@ from .ops.prox import (
     SeparableSum,
     Scale,
     Translate,
-    PadTail,
     MoreauConjugate,
     conjugate,
 )
@@ -82,7 +80,6 @@ from .solvers.agraal import agraal
 from .solvers.malitsky_pock import malitsky_pock
 from .solvers.adapdm_plus import adaptive_linesearch_primal_dual
 from .solvers.auto import auto_adaptive_proxgrad
-from .solvers.pd_fused import fused_adaptive_primal_dual, fused_condat_vu
 from .ops.sparse import ELLOperator
 from .ops.bcsr import BCSROperator
 
@@ -94,7 +91,6 @@ __all__ = [
     "ElasticNet", "GroupL2", "IndSimplex", "IndBall1", "LInfNorm", "Huber",
     "NuclearNorm", "IndPSD", "HingeLoss", "LogBarrier", "IndHalfspace",
     "IndHyperplane", "SeparableSum", "Scale", "Translate",
-    "PadTail",
     "MoreauConjugate",
     "conjugate",
     "SmoothOracle", "FromFunction", "ZeroSmooth", "value_and_grad",
@@ -108,7 +104,6 @@ __all__ = [
     "adaptive_primal_dual", "adaptive_proxgrad", "fixed_proxgrad", "condat_vu",
     "backtracking_proxgrad", "backtracking_nesterov", "fixed_nesterov",
     "agraal", "malitsky_pock", "adaptive_linesearch_primal_dual",
-    "fused_adaptive_primal_dual", "fused_condat_vu", "ELLOperator",
-    "BCSROperator",
+    "ELLOperator", "BCSROperator",
     "auto_adaptive_proxgrad",
 ]

@@ -20,8 +20,8 @@ def main(argv=None):
     p.add_argument("--f64", action="store_true")
     p.add_argument("--no-plot", action="store_true")
     p.add_argument("--fast-paths", action="store_true",
-                   help="run the drivers on their fused/resident fast paths "
-                        "(the results_fast/ grid)")
+                   help="run the t-sweeps as vmapped programs and, on the "
+                        "GPU, the lasso on the one-pass oracle")
     args = p.parse_args(argv)
 
     from . import (
@@ -67,14 +67,12 @@ def main(argv=None):
         ]),
     ]
     fast_flags = {
-        "lasso": ["--resident"],
-        "sparse_logreg": ["--resident"],
-        "cubic_sparse_logreg": ["--resident"],
-        "nesterov_worst_case": ["--resident"],
-        "dual_svm": ["--resident"],
-        "square_root_lasso": ["--resident-grid"],
-        "least_absolute_deviation": ["--resident-grid"],
+        "dual_svm": ["--vmap-sweep"],
+        "square_root_lasso": ["--vmap-sweep"],
+        "least_absolute_deviation": ["--vmap-sweep"],
     }
+    if not args.cpu:  # the one-pass oracle is a GPU kernel
+        fast_flags["lasso"] = ["--fused"]
     for name, fn, extra in jobs:
         t0 = time.time()
         if args.fast_paths:

@@ -5,7 +5,7 @@ The reference accepts anything supporting ``A * x``, ``A' * y`` and
 dataclass with ``matvec``/``rmatvec``/``norm``; ``DenseOperator`` wraps a
 (possibly sharded) ``jnp`` matrix so that under ``jit`` over a
 ``jax.sharding.Mesh`` the matvec partials and psum collectives are inserted
-by XLA/GSPMD automatically — the TPU replacement for Julia's BLAS calls.
+by XLA/GSPMD automatically — the replacement for Julia's BLAS calls.
 
 ``opnorm`` (largest singular value) is computed by power iteration on A'A,
 replacing the reference's dense ``opnorm(A)`` precompute
@@ -27,8 +27,9 @@ __all__ = ["DenseOperator", "SparseOperator", "DifferenceOperator",
 class DenseOperator:
     """A dense (possibly device-sharded) matrix as a linear operator.
 
-    ``precision``: MXU algorithm ("highest" = full f32; None = backend
-    default, bf16x1 on TPU). bf16 storage accumulates into the vector dtype.
+    ``precision``: the products' algorithm ("highest" = full f32; None =
+    backend default, which may be TF32 on a GPU). bf16 storage accumulates
+    into the vector dtype.
     """
 
     a: jnp.ndarray
@@ -70,13 +71,12 @@ class SparseOperator:
     """A BCOO sparse matrix as a linear operator.
 
     The reference stores LIBSVM data as SparseMatrixCSC (experiments/
-    libsvm.jl:34); on TPU the dense path is almost always faster (sparse
-    matvec lowers to gather/scatter off the MXU), so this exists for parity
-    and for genuinely huge, very sparse problems on CPU hosts. Construct via
+    libsvm.jl:34); at the reference's densities the dense path is usually
+    faster, so this exists for parity and for genuinely huge, very sparse
+    problems. Construct via
     ``SparseOperator.from_dense`` or from a ``jax.experimental.sparse.BCOO``.
 
-    For the TPU-native sparse path (padded-row ELL, gather-only matvecs in
-    both directions) see ``ops.sparse.ELLOperator``.
+    For the padded-row ELL path (gather-only matvecs in both directions) see ``ops.sparse.ELLOperator``.
     """
 
     a: object  # jax.experimental.sparse.BCOO

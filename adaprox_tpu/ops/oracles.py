@@ -5,7 +5,7 @@ with ``pb() -> grad`` (src/AdaProx.jl:11-16): experiments hand-write pullbacks
 that reuse the forward matvec (e.g. lasso's residual, lasso/runme.jl:21-26).
 
 A returned closure cannot live in a ``lax.while_loop``/``scan`` carry, so the
-TPU-native protocol splits the pullback into data + a pure function:
+protocol here splits the pullback into data + a pure function:
 
   * ``value_and_aux(x) -> (f_x, aux)``  — forward pass; ``aux`` is a pytree of
     residuals that makes the gradient cheap (the "saved pullback state").
@@ -27,7 +27,7 @@ import jax.numpy as jnp
 
 from .._pytree import pytree_dataclass
 
-__all__ = ["SmoothOracle", "FromFunction", "PadDomain", "ZeroSmooth",
+__all__ = ["SmoothOracle", "FromFunction", "ZeroSmooth",
            "value_and_grad"]
 
 
@@ -90,27 +90,6 @@ class ZeroSmooth(SmoothOracle):
     def grad_from_aux(self, x, aux):
         del aux
         return jnp.zeros_like(x)
-
-
-@pytree_dataclass(meta=("n_true",))
-class PadDomain(SmoothOracle):
-    """f_pad(x) = inner(x[:n_true]) with a zero-padded gradient tail.
-
-    Companion of ``ops.prox.PadTail`` for zero-column-padded coupling
-    matrices: the padded coordinates never influence f and receive zero
-    gradient, so (given a prox with prox(0) = 0 at those coordinates) they
-    stay exactly 0 through the whole solve. Static slice/pad — free after
-    XLA fusion."""
-
-    inner: object
-    n_true: int
-
-    def value_and_aux(self, x):
-        return self.inner.value_and_aux(x[: self.n_true])
-
-    def grad_from_aux(self, x, aux):
-        g = self.inner.grad_from_aux(x[: self.n_true], aux)
-        return jnp.concatenate([g, jnp.zeros_like(x[self.n_true :])])
 
 
 @pytree_dataclass(meta=("fn",))

@@ -2,51 +2,30 @@
 
 The reference stores LIBSVM data sparse (experiments/libsvm.jl:34,
 SparseMatrixCSC, 70-97% sparse) and its matvecs go through Julia's generic
-sparse BLAS. TPUs have no scatter/gather hardware on the matmul path, so a
-TPU-native sparse matvec must be re-designed rather than ported:
+sparse BLAS. Here the sparse matvec is two XLA gathers:
 
   * ELL (padded-row) layout: ``vals``/``cols`` of shape (m, k) with k =
-    max-nnz-per-row rounded up to the 128-lane tile — every row the same
-    length, fully static shapes, vectorizes on the VPU;
+    max-nnz-per-row rounded up to a multiple of 128 — every row the same
+    length, fully static shapes;
   * ``A @ x``  = sum(vals * x[cols], axis=1)    — row-parallel gather;
   * ``A' @ y`` uses a second ELL structure built from A' (same layout), so
     BOTH matvecs are gathers — no scatter anywhere (scatter-add is the slow
     path on every backend);
-  * per-iteration HBM traffic ~ m*k*(4+4) bytes vs dense m*n*4: the sparse
-    path wins when the padded density k/n < 1/2. LIBSVM-shaped data
-    (n <= 123, k ~ n/4 but padded to 128) does NOT clear that bar — the
-    honest crossover, measured in bench and documented in
-    docs/PERFORMANCE.md, needs n >= a few hundred with k/n <= 1/2. For the
-    reference's own datasets the dense path stays faster on TPU; this
-    operator is for genuinely large sparse problems.
-
-The XLA path (jnp.take) runs everywhere and is the production TPU path.
-The Pallas kernel exists for interpret-mode validation and as the
-forward-looking design: Mosaic's dynamic lane gather (measured on v5e,
-jax 0.8 era) supports ONLY single-vreg sources — take_along_axis with
-source width exactly 128 lanes and indices.shape == source.shape; wider
-sources fail with "Multiple source vregs along gather dimension", and a
-broadcast_in_dim source fails even at width 128. A gather kernel
-restricted to n <= 128 loses to the dense matvec by construction (the
-padded k reaches n there), so ``use_pallas`` stays off on TPU until
-Mosaic grows multi-vreg gathers.
+  * per-iteration traffic ~ m*k*(4+4) bytes vs dense m*n*4: the sparse
+    path can only win when the padded density k/n < 1/2. LIBSVM-shaped
+    data (n <= 123, k ~ n/4 but padded to 128) does not clear that bar;
+    this operator is for genuinely large sparse problems.
 """
 
 from __future__ import annotations
 
-import functools
-
-import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
 from .._pytree import pytree_dataclass
 from .linops import opnorm2
 
-__all__ = ["ELLOperator", "ell_from_dense_arrays", "ell_matvec_xla",
-           "ell_matvec_pallas"]
+__all__ = ["ELLOperator", "ell_from_dense_arrays", "ell_matvec_xla"]
 
 _LANE = 128
 _SUBLANE = 8
@@ -88,79 +67,12 @@ def ell_matvec_xla(vals, cols, x, out_rows):
     return jnp.sum(vals.astype(acc) * gathered, axis=1)[:out_rows]
 
 
-def _ell_kernel(x_ref, vals_ref, cols_ref, y_ref, *, acc_dtype, tm):
-    # Mosaic's lane gather requires indices.shape == source.shape (its
-    # dynamic-gather lowering asserts exactly that), so the (tm, k) index
-    # block is padded in-VMEM to the source width n_pad and the result
-    # sliced back. Gather COMPUTE is then n_pad/k times the useful work —
-    # cheap for the LIBSVM-like regime (n_pad/k <= ~4, see ell_matvec_pallas
-    # which gates on it) — while HBM traffic stays at the sparse m*k*8.
-    idx = cols_ref[:]                                   # (tm, k)
-    n_pad = x_ref.shape[1]
-    k = idx.shape[1]
-    xb = jnp.broadcast_to(x_ref[:], (tm, n_pad))
-    if n_pad > k:
-        idx = jnp.concatenate(
-            [idx, jnp.zeros((tm, n_pad - k), jnp.int32)], axis=1)
-    gathered = jnp.take_along_axis(xb, idx, axis=1)[:, :k]
-    y_ref[:] = jnp.sum(vals_ref[:].astype(acc_dtype) * gathered, axis=1,
-                       keepdims=True)
-
-
-@functools.partial(jax.jit, static_argnames=("interpret", "block_rows"))
-def ell_matvec_pallas(vals, cols, x, interpret=False, block_rows=None):
-    """Row-tiled Pallas ELL matvec: x resident in VMEM, vals/cols streamed.
-    Shapes: vals/cols (m, k) with m % 8 == 0, k % 128 == 0."""
-    m, k = vals.shape
-    n = x.shape[0]
-    acc = x.dtype
-    n_pad = _pad_up(n, _LANE)
-    # tile must fit: vals+cols (tm*k*8) plus the broadcast gather source
-    # (tm * n_pad * itemsize)
-    budget = 4 * 1024 * 1024
-    if m % _SUBLANE:
-        # without this the tile-size search below decrements through 0
-        raise ValueError(
-            f"ell_matvec_pallas needs m % {_SUBLANE} == 0, got m={m}; "
-            "pad the row count (cf. hbm_read_reduce's guard)")
-    tm = block_rows or max(
-        _SUBLANE,
-        min(512, budget // max(1, k * 8 + n_pad * x.dtype.itemsize))
-        // _SUBLANE * _SUBLANE,
-    )
-    while m % tm:
-        tm -= _SUBLANE
-    x2 = jnp.zeros((1, n_pad), acc).at[0, :n].set(x)
-
-    y = pl.pallas_call(
-        functools.partial(_ell_kernel, acc_dtype=acc, tm=tm),
-        grid=(m // tm,),
-        in_specs=[
-            pl.BlockSpec((1, n_pad), lambda i: (0, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tm, k), lambda i: (i, 0), memory_space=pltpu.VMEM),
-            pl.BlockSpec((tm, k), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((tm, 1), lambda i: (i, 0), memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((m, 1), acc),
-        interpret=interpret,
-        compiler_params=None if interpret else pltpu.CompilerParams(
-            vmem_limit_bytes=100 * 1024 * 1024,
-        ),
-        cost_estimate=pl.CostEstimate(
-            flops=2 * m * k, bytes_accessed=m * k * 8, transcendentals=0
-        ),
-    )(x2, vals, cols)
-    return y[:, 0]
-
-
 @pytree_dataclass(meta=("shape",))
 class ELLOperator:
     """Linear operator over the padded-row sparse format (both layouts).
 
-    Matvecs run through the XLA gather on every backend (see the module
-    docstring for the measured Mosaic limits that keep the Pallas kernel
-    out of the TPU path for now). Construct via ``from_dense`` (or from
-    scipy via ``.toarray()``).
+    Matvecs run through the XLA gather. Construct via ``from_dense`` (or
+    from scipy via ``.toarray()``).
     """
 
     vals: jnp.ndarray  # (m_pad, k)
@@ -182,17 +94,11 @@ class ELLOperator:
         """Padded density k/n — the sparse path beats dense when < 1/2."""
         return self.vals.shape[1] / self.shape[1]
 
-    def _mv(self, vals, cols, x, out_rows):
-        # XLA gather on every backend (see module docstring for why the
-        # Pallas kernel is not viable on current Mosaic); the kernel
-        # remains exercised in interpret mode by tests
-        return ell_matvec_xla(vals, cols, x, out_rows)
-
     def matvec(self, x):
-        return self._mv(self.vals, self.cols, x, self.shape[0])
+        return ell_matvec_xla(self.vals, self.cols, x, self.shape[0])
 
     def rmatvec(self, y):
-        return self._mv(self.vals_t, self.rows_t, y, self.shape[1])
+        return ell_matvec_xla(self.vals_t, self.rows_t, y, self.shape[1])
 
     def norm(self):
         """Frobenius norm (Julia ``norm(A)`` parity; padding vals are 0)."""

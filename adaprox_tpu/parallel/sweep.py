@@ -1,31 +1,31 @@
-"""Device-parallel resident sweeps: shard the SWEEP axis over a mesh.
+"""Device-parallel sweeps: shard the SWEEP axis over a mesh.
 
-The resident whole-solve kernels (ops/resident.py, ops/resident_bt.py) run
-an entire experiment grid — the reference's coupling sweeps
-(dual_svm/runme.jl:61, square_root_lasso/runme.jl:80-95) and method menus —
-as ONE Pallas launch with the problem data VMEM-resident and a kernel grid
-over the sweep index. Every sweep cell is an independent solve, so the
-natural multi-chip layout is *work* parallelism:
+A sweep launcher runs an entire experiment grid — the reference's coupling
+sweeps (dual_svm/runme.jl:61, square_root_lasso/runme.jl:80-95), method
+menus, regularization paths — as ONE program: the solver engine vmapped
+over the sweep index (e.g. experiments.scaling.mp_t_sweep). Every sweep
+cell is an independent solve, so the natural multi-device layout is *work*
+parallelism:
 
   * sweep table (``ts`` / ``rows``, shape (T, ...))  -> P("sweep")
   * problem operands (Q / A / b, identical per cell) -> P()  (replicated)
-  * every output (x, numit, hists, ... all (T, ...)) -> P("sweep")
+  * every output (x, numit, ... all (T, ...))        -> P("sweep")
 
-Each device runs the SAME single-launch kernel on its T/N slice of the
-sweep — zero cross-device communication inside the solve; the outputs
-come back as sweep-sharded device arrays on the mesh (read them whole
-from a single-process mesh, or re-shard to replicated for multi-process
-reads — see parallel/launch.py::_worker_sweep), so strong scaling is
-linear until T/N < 1. This composes with the operand-sharded paths
-(parallel/fused.py, solvers/pd_fused.py mesh mode) which split a single
-LARGE problem instead: shard the sweep when the grid is wide, shard the
-operand when the matrix is the thing that doesn't fit — or both at once
-over a 2-D mesh (``composed_mesh``).
+Each device runs the SAME program on its T/N slice of the sweep — zero
+cross-device communication inside the solve; the outputs come back as
+sweep-sharded device arrays on the mesh (read them whole from a
+single-process mesh, or re-shard to replicated for multi-process reads —
+see parallel/launch.py::_worker_sweep), so strong scaling is linear until
+T/N < 1. This composes with the operand-sharded paths (parallel/mesh.py,
+parallel/fused.py) which split a single LARGE problem instead: shard the
+sweep when the grid is wide, shard the operand when the matrix is the
+thing that doesn't fit — or both at once over a 2-D mesh
+(``composed_mesh``).
 
 ``sharded_sweep`` takes host-local arrays and is meant for SINGLE-PROCESS
-meshes (one host's chips, or the virtual CPU mesh). On a multi-process
-pod slice, build global arrays with ``jax.make_array_from_callback`` and
-keep T divisible by the global device count (the edge-repeat pad path
+meshes (one host's devices, or the virtual CPU mesh). On a multi-process
+mesh, build global arrays with ``jax.make_array_from_callback`` and keep T
+divisible by the global device count (the edge-repeat pad path
 concatenates eagerly, which requires fully-addressable arrays) —
 ``parallel/launch.py --mode sweep`` is the worked multi-process example.
 
@@ -62,8 +62,8 @@ def sweep_mesh(n_devices=None, devices=None) -> Mesh:
 
 def _pad_dim0(x, pad):
     """Edge-repeat ``pad`` rows so dim0 divides the mesh; padded cells
-    recompute the last sweep entry (cheap — they ride the same kernel
-    grid) and are sliced away from every output."""
+    recompute the last sweep entry and are sliced away from every
+    output."""
     if pad == 0:
         return x
     return jnp.concatenate([x, jnp.repeat(x[-1:], pad, axis=0)], axis=0)
@@ -74,9 +74,9 @@ def _shmap_callable(fn, mesh, names, shard_keys, out_axis):
     """The shard-mapped sweep wrapper, cached on (fn identity, mesh, arg
     names, shard set, out_axis): jax's trace cache keys on the callable's
     identity, so rebuilding the closure per sharded_sweep call would
-    re-trace the whole resident kernel sweep every invocation — repeated
-    launches (timed loops, drivers re-running a grid) would pay tracing +
-    lowering inside what looks like pure execution (review r5-5)."""
+    re-trace the whole sweep every invocation — repeated launches (timed
+    loops, drivers re-running a grid) would pay tracing + lowering inside
+    what looks like pure execution."""
     in_specs = tuple(P(SWEEP) if k in shard_keys else P() for k in names)
 
     def call(*chunked):
@@ -90,21 +90,21 @@ def _shmap_callable(fn, mesh, names, shard_keys, out_axis):
 def sharded_sweep(fn, mesh, arrays, shard_keys, out_axis=0):
     """Run sweep launcher ``fn`` with its sweep axis sharded over ``mesh``.
 
-    ``fn``         — a sweep entry point (e.g. resident_adapdm_dsvm_sweep)
-                     with every NON-array parameter (maxit, tol, record,
-                     interpret, ...) already bound via functools.partial:
-                     inside shard_map they must stay compile-time constants
-                     (maxit sizes Pallas grids and history buffers).
+    ``fn``         — a sweep launcher (e.g. experiments.scaling.mp_t_sweep)
+                     with every NON-array parameter (maxit, tol, ...)
+                     already bound via functools.partial: inside shard_map
+                     they must stay compile-time constants (maxit sizes
+                     history buffers).
     ``arrays``     — dict name -> array: ALL array arguments, passed to
                      ``fn`` by keyword. Never close over a large operand
                      inside ``fn`` — a closure capture becomes a compile-
-                     time constant shipped to the compiler (see CLAUDE.md).
+                     time constant embedded in the program.
     ``shard_keys`` — the names whose dim 0 is the sweep axis (the ts /
                      rows table). Everything else is replicated.
     ``out_axis``   — which axis of every OUTPUT leaf carries the sweep
-                     dim. 0 for the plain sweeps; 1 for the dataset-batched
-                     (dataset x t) grid launchers (ops.resident._f0_grid),
-                     whose outputs are (D, T, ...) with the t axis sharded.
+                     dim. 0 for the plain sweeps; 1 for (dataset x t) grid
+                     launchers whose outputs are (D, T, ...) with the t axis
+                     sharded.
 
     The sweep length T is padded (edge-repeat) to a multiple of the mesh
     size; every output leaf stays SHARDED along "sweep" at ``out_axis``
@@ -144,8 +144,7 @@ def composed_mesh(n_sweep, n_rows, devices=None) -> Mesh:
     """2-D ("sweep", "rows") mesh composing the two parallel axes: the
     batch dimension of a vmapped grid over "sweep" and the data-matrix
     rows over "rows". This is the layout for grids whose single instance
-    is too large to replicate per device (the VMEM-resident sweep
-    precondition) but that still sweep many cells: place the batched rule
+    is too large to replicate per device but that still sweep many cells: place the batched rule
     params with P(SWEEP), the operands with P(ROWS, ...) as in
     parallel/mesh.py, jit the vmapped solve, and GSPMD partitions both
     axes — the row-reduction psums stay within each sweep group. See
@@ -163,10 +162,9 @@ def composed_mesh(n_sweep, n_rows, devices=None) -> Mesh:
 
 def maybe_sharded_sweep(fn, arrays, shard_keys, devices=None, out_axis=0):
     """``sharded_sweep`` over all local devices when more than one is
-    available; on a single device (this image's one bench chip) calls
-    ``fn(**arrays)`` directly, zero overhead. This is how the experiment
-    drivers' resident sweeps scale over a pod slice with no code changes —
-    bit-equal to the single-device launch (tests/test_sweep_sharding.py)."""
+    available; on a single device calls ``fn(**arrays)`` directly, zero
+    overhead — bit-equal to the single-device launch
+    (tests/test_sweep_sharding.py)."""
     if devices is None:
         devices = jax.devices()
     if len(devices) < 2:

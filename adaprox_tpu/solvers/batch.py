@@ -1,7 +1,7 @@
-"""Batched solves via vmap — one compiled kernel for many problem instances.
+"""Batched solves via vmap — one compiled program for many problem instances.
 
 The reference runs hyperparameter sweeps as sequential outer loops (e.g. the
-t-grid at dual_svm/runme.jl:63-76 or per-lambda lasso paths); on TPU the
+t-grid at dual_svm/runme.jl:63-76 or per-lambda lasso paths); here the
 whole grid vectorizes over the rule/operator pytree leaves and executes as a
 single program (SURVEY §2.4 "Batched problem instances").
 

@@ -136,14 +136,14 @@ def reopen(carry, dtype, scalar_dtype=None, scalar_fields=()):
 
 
 def run_loop(carry0, step, maxit, history, it_cap=None):
-    """Drive a solver iteration in one of two TPU execution modes.
+    """Drive a solver iteration in one of two execution modes.
 
     ``step: carry -> (carry, Records-row)`` must maintain ``carry.it``
     (int32, incremented once per iteration) and ``carry.done`` (bool,
     latched when the stop criterion fires).
 
     * ``history=False``: ``lax.while_loop`` — early exit, no history
-      (production solve; minimal HBM traffic).
+      (production solve; minimal memory traffic).
     * ``history=True``: ``lax.scan`` over a fixed ``maxit`` trip count with a
       freeze-on-done mask — fully unrollable/pipelineable by XLA and yields
       the stacked per-iteration records for telemetry (the reference logs

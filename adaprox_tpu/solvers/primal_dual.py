@@ -19,7 +19,7 @@ Iteration (x: primal, y: dual, v: pre-prox point):
     stop when ||(p_res, d_res)|| <= tol
     A'y; v = x - gamma (grad_x + A'y); x = prox_{gamma g}(v)
 
-TPU mapping:
+Execution on the device:
   * two execution modes — ``lax.while_loop`` (early exit, production solve)
     and ``lax.scan`` (fixed trip count with a ``done`` mask, full
     per-iteration history for telemetry/benchmarks);
@@ -27,7 +27,7 @@ TPU mapping:
     (the reference's h=Zero/A=0 PG case, where dual_res == 0 identically);
   * the curvature scalars consumed by the rule are three reductions — on a
     sharded problem these plus the residual norms are the only cross-device
-    traffic per iteration (psum over ICI), so iterations scale with the
+    traffic per iteration (psum over the interconnect), so iterations scale with the
     matvec;
   * oracle counters ride the carry (see solvers.common).
 """
@@ -318,7 +318,7 @@ def adaptive_primal_dual(
 
     ``scalar_dtype``: run the stepsize rule, curvature reductions, and
     residual norms in this (wider) dtype while matvecs/iterates stay in the
-    x0 dtype — the f64-over-f32 hybrid for TPU (needs jax_enable_x64). The
+    x0 dtype — the f64-over-f32 hybrid (needs jax_enable_x64). The
     f32->f64 upcasts happen BEFORE the cross-iterate subtractions, so the
     rule sees exact differences; the remaining precision floor is the f32
     matvec itself.

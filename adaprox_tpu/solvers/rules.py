@@ -15,12 +15,12 @@ where ``curv`` is the `Curvature` triple of cross-iterate reductions
 
 These three scalars are the ONLY cross-device communication an adaptive step
 needs per iteration: on a sharded problem they are local partial reductions +
-one psum over ICI. Rules consume the reductions rather than the raw iterate
-vectors so the engine can fuse the three into one pass (ops.kernels).
+one psum. Rules consume the reductions rather than the raw iterate vectors
+so XLA can fuse the three into one pass.
 
 All rule parameters are dynamic pytree leaves -> a solver can be ``vmap``-ed
 over e.g. ``t`` for the coupling sweeps (dual_svm/runme.jl:61-76) in one
-compiled kernel.
+compiled program.
 """
 
 from __future__ import annotations
@@ -164,10 +164,9 @@ class MalitskyMishchenkoRule:
         gamma_prev, rho = state
         lip = jnp.sqrt(curv.ndg2) / jnp.sqrt(curv.ndx2)
         # rho is inf on the first update (init state): growth bound inactive.
-        # Guard explicitly rather than relying on sqrt(1+inf)==inf — XLA:TPU
-        # emulated f64 evaluates sqrt(1+inf) to NaN (measured on v5e), which
-        # poisoned every MM solve on hardware; the where() gives the exact
-        # limit on every backend.
+        # Guard explicitly rather than relying on sqrt(1+inf)==inf: some
+        # backends' emulated f64 evaluates sqrt(1+inf) to NaN; the where()
+        # gives the exact limit on every backend.
         growth = jnp.where(
             jnp.isfinite(rho), jnp.sqrt(1 + rho) * gamma_prev, jnp.inf
         )

@@ -48,7 +48,8 @@ class Counting:
     NOTE: eager-only. Do not pass a `Counting` into a jitted solver — the
     Python-side increments would run once at trace time. Compiled solvers
     meter through their carry counters instead, which reproduce the same
-    call-site accounting (verified by tests/test_counting.py).
+    call-site accounting (verified by tests/test_utils.py::
+    test_counting_semantics and the counter tests in tests/test_solvers.py).
     """
 
     def __init__(self, f):

@@ -2,8 +2,8 @@
 
 Parses ``label idx:val idx:val ...`` lines into a dense (row-major, zero
 padded) feature matrix + label vector. The reference builds a Julia
-SparseMatrixCSC; on TPU the hot matvec wants a dense HBM-resident matrix
-padded to MXU-friendly tiles, so densification happens here (the reference
+SparseMatrixCSC; here the hot matvec wants a dense device-resident matrix,
+so densification happens here (the reference
 datasets are small: a5a is 6414 x 123). Binary label remapping with
 validation mirrors libsvm.jl:41-58.
 """
@@ -30,7 +30,7 @@ def load_libsvm_dataset(
 ):
     """Returns ``(X, y)`` as numpy arrays. ``labels=(l0, l1)`` remaps a binary
     label set to ``(l0, l1)`` by value order, erroring if not binary.
-    ``pad_to`` zero-pads both dims up to a multiple (TPU tile alignment).
+    ``pad_to`` zero-pads both dims up to a multiple (block alignment).
     ``engine``: "native" (parallel C++ parser), "python", or "auto" (native
     with python fallback).
     """

@@ -2,7 +2,7 @@
 
 The reference emits one JSON object per solver iteration on a custom log
 level (src/AdaProx.jl:7; experiments/logging.jl:19-42 tees them to a .jsonl
-file plus a log-decimated console echo). Logging from inside a compiled TPU
+file plus a log-decimated console echo). Logging from inside a compiled device
 loop would stall the device pipeline on a host callback every iteration, so
 the engine instead returns the stacked per-iteration `Records` arrays and
 this module writes the identical JSONL post-hoc.

@@ -1,5 +1,6 @@
-"""Block-sparse (BCSR) matvec: structure building, kernel parity (interpret
-mode), operator wiring, and the oracle/engine integration."""
+"""Block-sparse (BCSR) matvec: structure building, the XLA gather path
+against the NumPy reference, operator wiring, and the oracle/engine
+integration."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -10,8 +11,8 @@ from adaprox_tpu.models.objectives import LeastSquares
 from adaprox_tpu.ops.bcsr import (
     BCSROperator,
     bcsr_from_dense,
-    bcsr_matvec,
     bcsr_matvec_ref,
+    bcsr_matvec_xla,
 )
 
 
@@ -35,52 +36,34 @@ def test_bcsr_structure_and_ref(density, rng):
     np.testing.assert_allclose(np.asarray(y), dp @ x, rtol=1e-9, atol=1e-11)
 
 
-def test_bcsr_kernel_interpret(rng):
-    d = _block_sparse(64, 512, 0.2, seed=5)
-    vals, cols, rowptr, (mp, npd) = bcsr_from_dense(d, 8, 128)
+def _xla(vals, cols, rowptr, x):
+    rows = np.repeat(np.arange(len(rowptr) - 1), np.diff(rowptr)).astype(np.int32)
+    return bcsr_matvec_xla(jnp.asarray(vals), jnp.asarray(cols),
+                           jnp.asarray(rows), x, len(rowptr) - 1)
+
+
+@pytest.mark.parametrize("block", [(8, 128), (16, 64), (64, 512), (4, 32)])
+def test_bcsr_xla_matvec_matches_ref(block, rng):
+    """The gather + einsum + segment-sum path at several tile shapes,
+    including uneven rows and an empty block row."""
+    bm, bn = block
+    d = _block_sparse(96, 700, 0.2, seed=5)
+    d[bm:2 * bm, :] = 0.0  # an empty block row
+    vals, cols, rowptr, (mp, npd) = bcsr_from_dense(d, bm, bn)
+    assert vals.shape[1:] == (bm, bn)
     x = jnp.asarray(rng.standard_normal(npd))
-    max_bpr = int(np.diff(rowptr).max())
-    got = bcsr_matvec(jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(rowptr),
-                      max_bpr, x, interpret=True)
-    ref = bcsr_matvec_ref(vals, cols, rowptr, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=1e-6, atol=1e-8)
+    np.testing.assert_allclose(np.asarray(_xla(vals, cols, rowptr, x)),
+                               np.asarray(bcsr_matvec_ref(vals, cols, rowptr, x)),
+                               rtol=1e-10, atol=1e-12)
 
 
-def test_bcsr_kernel_uneven_rows(rng):
-    """Rows with very different tile counts (incl. empty block rows): the
-    clamped index maps + masking must stay exact."""
-    d = _block_sparse(48, 640, 0.15, seed=9)
-    d[8:16, :] = 0.0  # an empty block row
-    vals, cols, rowptr, (mp, npd) = bcsr_from_dense(d, 8, 128)
-    x = jnp.asarray(rng.standard_normal(npd))
-    max_bpr = max(1, int(np.diff(rowptr).max()))
-    got = bcsr_matvec(jnp.asarray(vals), jnp.asarray(cols), jnp.asarray(rowptr),
-                      max_bpr, x, interpret=True)
-    ref = bcsr_matvec_ref(vals, cols, rowptr, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=1e-6, atol=1e-8)
-
-
-@pytest.mark.parametrize("slab", [4, 8])
-def test_bcsr_slab_kernel_interpret(slab, rng):
-    """Slab-streamed kernel (contiguous multi-tile DMA, VERDICT r2 item 6):
-    parity with the reference incl. uneven rows, empty block rows, and a
-    tile count that is not a slab multiple."""
-    from adaprox_tpu.ops.bcsr import bcsr_matvec_slab
-
-    d = _block_sparse(128, 1024, 0.25, seed=13)
-    d[16:24, :] = 0.0  # empty block row
-    vals, cols, rowptr, (mp, npd) = bcsr_from_dense(d, 8, 128)
-    rows = np.repeat(np.arange(len(rowptr) - 1),
-                     np.diff(rowptr)).astype(np.int32)
-    x = jnp.asarray(rng.standard_normal(npd), jnp.float32)
-    got = bcsr_matvec_slab(jnp.asarray(vals, jnp.float32), jnp.asarray(cols),
-                           jnp.asarray(rows), len(rowptr) - 1, x, slab=slab,
-                           interpret=True)
-    ref = bcsr_matvec_ref(jnp.asarray(vals, jnp.float32), cols, rowptr, x)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
-                               rtol=1e-4, atol=1e-4)
+def test_bcsr_all_zero_matrix(rng):
+    """An all-zero matrix keeps one zero tile so shapes stay valid."""
+    d = np.zeros((20, 200))
+    op = BCSROperator.from_dense(d, block=(8, 128))
+    x = jnp.asarray(rng.standard_normal(200))
+    np.testing.assert_array_equal(np.asarray(op.matvec(x)), np.zeros(20))
+    assert float(op.norm()) == 0.0
 
 
 def test_bcsr_operator_parity(rng):

@@ -203,9 +203,16 @@ def test_profiling_utils(prob):
 
     secs, out = profiling.timed(run, reps=2)
     assert secs > 0 and np.isfinite(float(out))
-    rep = profiling.throughput_report(secs, 50, 2 * 64 * 128 * 8)
+
+    class Card:  # the report divides by the named device's published peak
+        device_kind = "NVIDIA H100 80GB HBM3"
+
+    rep = profiling.throughput_report(secs, 50, 2 * 64 * 128 * 8, device=Card())
     assert rep["iters_per_sec"] > 0
-    assert 0 <= rep["frac_roofline"]
+    assert rep["peak_gbps"] == 3350.0
+    assert 0 <= rep["frac_peak"]
+    with pytest.raises(KeyError):  # the CPU has no row: an error, no default
+        profiling.throughput_report(secs, 50, 1.0)
 
 
 def test_scaling_harness_measure(prob):

@@ -1,9 +1,8 @@
 """Multi-process (2-process) execution of the sharded solver program.
 
-VERDICT r1 item 4: the only multi-host component that had never executed.
 Spawns 2 real OS processes on localhost, each with 4 virtual CPU devices;
 ``jax.distributed`` connects them (Gloo collectives across the process
-boundary — the DCN path), the 8-device global mesh spans both, and the
+boundary), the 8-device global mesh spans both, and the
 sharded AdaPGM trajectory must match a single-process solve of the same
 problem.
 
@@ -27,13 +26,11 @@ M, N, MAXIT = 256, 64, 200
 
 
 def test_two_process_sweep_matches_single(tmp_path):
-    """Sweep-axis (work) parallelism across a REAL process boundary: a
-    resident whole-solve MP t-sweep sharded over the 8-device 2-process
-    mesh must reproduce the single-process direct launch exactly — the
-    only cross-process traffic is the final output gather."""
-    import functools
-
-    from adaprox_tpu.ops.resident import resident_mpls_sweep
+    """Sweep-axis (work) parallelism across a REAL process boundary: the
+    vmapped Malitsky-Pock t-sweep sharded over the 8-device 2-process mesh
+    must reproduce the single-process vmapped program — the only
+    cross-process traffic is the final output gather."""
+    from adaprox_tpu.experiments.scaling import mp_t_sweep
 
     m, n, maxit = 64, 32, 40
     out = tmp_path / "sweep.json"
@@ -50,19 +47,16 @@ def test_two_process_sweep_matches_single(tmp_path):
     assert got["processes"] == 2 and got["global_devices"] == 8
     assert got["t_count"] == 8
 
-    # single-process direct launch of the identical sweep (f64, interpret)
+    # single-process launch of the identical sweep (f64)
     rng = np.random.default_rng(3)
     a = jnp.asarray(rng.standard_normal((m, n)))
     bv = jnp.asarray(rng.standard_normal(m))
     ts = jnp.asarray(np.geomspace(0.1, 10.0, 8))
-    fn = functools.partial(resident_mpls_sweep, lam=0.1, sigma0=1.0,
-                           tol=0.0, maxit=maxit, record=True,
-                           interpret=True)
-    ref = fn(a=a, bv=bv, ts=ts)
-    assert got["numit"] == [int(v) for v in ref[1]]
+    ref = mp_t_sweep(a, bv, ts, maxit=maxit)
+    assert len(got["x_norms"]) == 8
     x_dist = np.load(str(out) + ".x.npy")
-    np.testing.assert_allclose(x_dist, np.asarray(ref[0]),
-                               rtol=1e-12, atol=1e-14)
+    # per-device batches reorder f64 sums in the batched products
+    np.testing.assert_allclose(x_dist, np.asarray(ref), rtol=1e-8, atol=1e-12)
 
 
 def test_two_process_matches_single(tmp_path):

@@ -16,7 +16,7 @@ def _methods(rows):
 def test_lasso_driver(tmp_path):
     from adaprox_tpu.experiments import lasso
 
-    lasso.main(["--outdir", str(tmp_path), "--sizes", "64x96x8", "--maxit", "150",
+    lasso.main(["--cpu", "--outdir", str(tmp_path), "--sizes", "64x96x8", "--maxit", "150",
                 "--no-plot"])
     rows = read_jsonl(tmp_path / "lasso_64_96_8.jsonl")
     assert rows[0]["method"] is None  # analytic-optimum pseudo record
@@ -37,9 +37,9 @@ def test_lasso_driver_live_rows_match_history(tmp_path):
     fixups, key projection) that unit tests of live_solve cannot see."""
     from adaprox_tpu.experiments import lasso
 
-    lasso.main(["--outdir", str(tmp_path / "hist"), "--sizes", "64x96x8",
+    lasso.main(["--cpu", "--outdir", str(tmp_path / "hist"), "--sizes", "64x96x8",
                 "--maxit", "150", "--no-plot"])
-    lasso.main(["--outdir", str(tmp_path / "live"), "--sizes", "64x96x8",
+    lasso.main(["--cpu", "--outdir", str(tmp_path / "live"), "--sizes", "64x96x8",
                 "--maxit", "150", "--no-plot", "--live"])
     hist = read_jsonl(tmp_path / "hist" / "lasso_64_96_8.jsonl")
     live = read_jsonl(tmp_path / "live" / "lasso_64_96_8.jsonl")
@@ -57,7 +57,7 @@ def test_lasso_driver_live_rows_match_history(tmp_path):
 def test_sparse_logreg_driver(tmp_path):
     from adaprox_tpu.experiments import sparse_logreg
 
-    sparse_logreg.main(["--outdir", str(tmp_path), "--datasets", "heart_scale",
+    sparse_logreg.main(["--cpu", "--outdir", str(tmp_path), "--datasets", "heart_scale",
                         "--maxit", "60", "--no-plot"])
     rows = read_jsonl(tmp_path / "heart_scale.jsonl")
     assert "AdaPGM (Ours)" in _methods(rows)
@@ -68,7 +68,7 @@ def test_sparse_logreg_driver(tmp_path):
 def test_dual_svm_driver(tmp_path):
     from adaprox_tpu.experiments import dual_svm
 
-    dual_svm.main(["--outdir", str(tmp_path), "--datasets", "heart_scale",
+    dual_svm.main(["--cpu", "--outdir", str(tmp_path), "--datasets", "heart_scale",
                    "--C", "0.1", "--maxit", "80", "--no-plot"])
     rows = read_jsonl(tmp_path / "heart_scale_C_0.1.jsonl")
     # projected keys only (dual_svm/runme.jl:141)
@@ -82,9 +82,9 @@ def test_dual_svm_driver(tmp_path):
 def test_dual_svm_vmap_sweep_matches_sequential(tmp_path):
     from adaprox_tpu.experiments import dual_svm
 
-    dual_svm.main(["--outdir", str(tmp_path / "seq"), "--datasets", "heart_scale",
+    dual_svm.main(["--cpu", "--outdir", str(tmp_path / "seq"), "--datasets", "heart_scale",
                    "--C", "0.1", "--maxit", "40", "--no-plot"])
-    dual_svm.main(["--outdir", str(tmp_path / "vm"), "--datasets", "heart_scale",
+    dual_svm.main(["--cpu", "--outdir", str(tmp_path / "vm"), "--datasets", "heart_scale",
                    "--C", "0.1", "--maxit", "40", "--no-plot", "--vmap-sweep"])
     seq = read_jsonl(tmp_path / "seq" / "heart_scale_C_0.1.jsonl")
     vm = read_jsonl(tmp_path / "vm" / "heart_scale_C_0.1.jsonl")
@@ -101,7 +101,7 @@ def test_dual_svm_vmap_sweep_matches_sequential(tmp_path):
 def test_square_root_lasso_driver(tmp_path):
     from adaprox_tpu.experiments import square_root_lasso
 
-    square_root_lasso.main(["--outdir", str(tmp_path), "--datasets", "housing_scale",
+    square_root_lasso.main(["--cpu", "--outdir", str(tmp_path), "--datasets", "housing_scale",
                             "--maxit", "50", "--no-plot"])
     rows = read_jsonl(tmp_path / "housing_scale.jsonl")
     assert set(rows[0].keys()) == {"method", "norm_res", "A_evals", "At_evals"}
@@ -116,9 +116,9 @@ def test_sqrt_lasso_vmap_sweep_matches_sequential(tmp_path):
     kernel must reproduce the sequential sweep (VERDICT r1 item 6)."""
     from adaprox_tpu.experiments import square_root_lasso
 
-    square_root_lasso.main(["--outdir", str(tmp_path / "seq"), "--datasets",
+    square_root_lasso.main(["--cpu", "--outdir", str(tmp_path / "seq"), "--datasets",
                             "housing_scale", "--maxit", "40", "--no-plot"])
-    square_root_lasso.main(["--outdir", str(tmp_path / "vm"), "--datasets",
+    square_root_lasso.main(["--cpu", "--outdir", str(tmp_path / "vm"), "--datasets",
                             "housing_scale", "--maxit", "40", "--no-plot",
                             "--vmap-sweep"])
     seq = read_jsonl(tmp_path / "seq" / "housing_scale.jsonl")
@@ -137,7 +137,7 @@ def test_sqrt_lasso_vmap_sweep_matches_sequential(tmp_path):
 def test_least_absolute_deviation_driver(tmp_path):
     from adaprox_tpu.experiments import least_absolute_deviation
 
-    least_absolute_deviation.main(["--outdir", str(tmp_path), "--datasets",
+    least_absolute_deviation.main(["--cpu", "--outdir", str(tmp_path), "--datasets",
                                    "housing_scale", "--maxit", "50", "--no-plot"])
     rows = read_jsonl(tmp_path / "housing_scale.jsonl")
     assert "Condat-Vu" in _methods(rows)
@@ -146,7 +146,7 @@ def test_least_absolute_deviation_driver(tmp_path):
 def test_cubic_driver(tmp_path):
     from adaprox_tpu.experiments import cubic_sparse_logreg
 
-    cubic_sparse_logreg.main(["--outdir", str(tmp_path), "--datasets", "heart_scale",
+    cubic_sparse_logreg.main(["--cpu", "--outdir", str(tmp_path), "--datasets", "heart_scale",
                               "--maxit", "40", "--no-plot"])
     rows = read_jsonl(tmp_path / "heart_scale.jsonl")
     ms = _methods(rows)
@@ -156,7 +156,7 @@ def test_cubic_driver(tmp_path):
 def test_nesterov_worst_case_driver(tmp_path):
     from adaprox_tpu.experiments import nesterov_worst_case
 
-    nesterov_worst_case.main(["--outdir", str(tmp_path), "--maxit", "500", "--no-plot"])
+    nesterov_worst_case.main(["--cpu", "--outdir", str(tmp_path), "--maxit", "500", "--no-plot"])
     rows = read_jsonl(tmp_path / "nesterov_worst_case.jsonl")
     # known-optimum pseudo record and gap sanity: accelerated beats plain PG
     opt = rows[0]["objective"]
@@ -173,79 +173,26 @@ def test_plotting(tmp_path):
     pytest.importorskip("matplotlib")
     from adaprox_tpu.experiments import lasso
 
-    lasso.main(["--outdir", str(tmp_path), "--sizes", "32x48x8", "--maxit", "60"])
+    lasso.main(["--cpu", "--outdir", str(tmp_path), "--sizes", "32x48x8", "--maxit", "60"])
     assert os.path.exists(tmp_path / "lasso_32_48_8.jsonl.pdf")
 
 
-def test_cubic_driver_resident(tmp_path):
-    """--resident runs every cubic method row on-core with the same JSONL
-    schema and method set as the engine path."""
-    from adaprox_tpu.experiments import cubic_sparse_logreg
-
-    cubic_sparse_logreg.main(["--outdir", str(tmp_path), "--datasets",
-                              "mushrooms", "--maxit", "30", "--resident",
-                              "--no-plot"])
-    rows = read_jsonl(tmp_path / "mushrooms.jsonl")
-    ms = _methods(rows)
-    assert {"Nesterov (backtracking)", "AdaPGM (MM)", "AdaPGM (Ours)",
-            "aGRAAL"} <= ms
-    assert sum(1 for m in ms if m.startswith("PGM (backtracking)")) == 3
-    meta = [r for r in rows if r.get("fast_path")]
-    assert meta and meta[0]["fast_path"] == "resident"
+DRIVERS = ["lasso", "sparse_logreg", "dual_svm", "square_root_lasso",
+           "least_absolute_deviation", "cubic_sparse_logreg",
+           "nesterov_worst_case"]
 
 
-def test_nesterov_worst_case_driver_resident(tmp_path):
-    from adaprox_tpu.experiments import nesterov_worst_case
+@pytest.mark.parametrize("name", DRIVERS)
+def test_driver_without_gpu_names_cpu(name, tmp_path, monkeypatch):
+    """Without --cpu a driver must find a GPU; on a CPU-only process it
+    exits with an error that names --cpu instead of running silently on
+    the CPU."""
+    import importlib
 
-    nesterov_worst_case.main(["--outdir", str(tmp_path), "--maxit", "60",
-                              "--resident", "--no-plot"])
-    rows = read_jsonl(tmp_path / "nesterov_worst_case.jsonl")
-    ms = _methods(rows)
-    assert {"Fixed stepsize PGM", "Backtracking PG", "Fixed Nesterov",
-            "Backtracking Nesterov", "AdaPGM (MM)", "AdaPGM"} == ms
+    from adaprox_tpu import platform
 
-
-def test_lasso_driver_resident_all_rows(tmp_path):
-    """--resident covers the backtracking and aGRAAL rows too (all nine
-    method rows on-core)."""
-    from adaprox_tpu.experiments import lasso
-
-    lasso.main(["--outdir", str(tmp_path), "--sizes", "64x128x8", "--maxit",
-                "80", "--resident", "--no-plot"])
-    rows = read_jsonl(tmp_path / "lasso_64_128_8.jsonl")
-    meta = [r for r in rows if r.get("fast_path")]
-    assert meta[0]["fast_path"] == "resident"
-    assert len(meta[0]["fast_methods"]) == 9
-
-
-def test_dual_svm_driver_resident_all_rows(tmp_path):
-    from adaprox_tpu.experiments import dual_svm
-
-    dual_svm.main(["--outdir", str(tmp_path), "--datasets", "heart_scale",
-                   "--C", "0.1", "--maxit", "60", "--resident", "--no-plot"])
-    rows = read_jsonl(tmp_path / "heart_scale_C_0.1.jsonl")
-    ms = _methods(rows)
-    assert "Condat-Vu" in ms
-    assert sum(1 for m in ms if m.startswith("AdaPDM (")) == 12
-    assert sum(1 for m in ms if m.startswith("Malitsky-Pock")) == 12
-    meta = [r for r in rows if r.get("fast_path")]
-    assert meta[0]["fast_path"] == "resident"
-
-
-def test_sqrt_lasso_resident_grid_driver(tmp_path):
-    """--resident-grid: one (dataset x t) launch per family, same files."""
-    from adaprox_tpu.experiments import square_root_lasso
-
-    square_root_lasso.main(["--outdir", str(tmp_path), "--datasets",
-                            "housing_scale,abalone", "--maxit", "40",
-                            "--resident-grid", "--no-plot"])
-    for ds in ("housing_scale", "abalone"):
-        rows = read_jsonl(tmp_path / f"{ds}.jsonl")
-        ms = _methods(rows)
-        assert "Condat-Vu" in ms
-        assert sum(1 for m in ms if m.startswith("Malitsky-Pock")) == 15
-        assert sum(1 for m in ms if m.startswith("AdaPDM+")) == 15
-        meta = [r for r in rows if r.get("fast_path")]
-        assert meta[0]["fast_path"] == "resident-grid"
-        assert "grid_total_s" in meta[0] or any(
-            "grid_total_s" in r for r in rows)
+    monkeypatch.setattr(platform, "enable_compile_cache", lambda: "")
+    driver = importlib.import_module(f"adaprox_tpu.experiments.{name}")
+    with pytest.raises(SystemExit, match="--cpu"):
+        driver.main(["--outdir", str(tmp_path), "--maxit", "5", "--no-plot"])
+    assert not list(tmp_path.iterdir())  # nothing ran

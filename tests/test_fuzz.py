@@ -64,25 +64,29 @@ def test_all_solvers_finite_fuzz(seed):
 
 
 @pytest.mark.parametrize("seed", range(4))
-def test_fused_pd_engine_fuzz(seed):
-    """Random sqrt-lasso instances through the fused PD engine: finite,
-    converging, and matching the reference engine (VERDICT r1 item 3 —
-    keeps the one-pass recut honest across random data)."""
-    rng = np.random.default_rng(100 + seed)
-    m, n = 32, 128
-    a = jnp.asarray(rng.standard_normal((m, n)))
-    yv = jnp.asarray(rng.standard_normal(m))
-    h = ap.Translate(inner=ap.L2Norm(lam=1.0), b=-yv)
-    na = float(np.linalg.norm(np.asarray(a)))
-    kw = dict(f=ap.ZeroSmooth(), g=ap.L1Norm(lam=1.0), h=h,
-              rule=ap.AdaPGMRule.make(t=1.0, norm_a=na), tol=1e-8, maxit=3000)
-    got = ap.fused_adaptive_primal_dual(jnp.zeros(n), jnp.zeros(m), A=a, **kw)
-    ref = ap.adaptive_primal_dual(jnp.zeros(n), jnp.zeros(m),
-                                  A=ap.DenseOperator(a=a), **kw)
-    assert np.isfinite(float(got.norm_res))
-    assert int(got.numit) == int(ref.numit)
-    np.testing.assert_allclose(np.asarray(got.x), np.asarray(ref.x),
-                               rtol=1e-7, atol=1e-9)
+def test_fused_ls_kernel_fuzz(seed):
+    """Random shapes, scales and tile configurations through the one-pass
+    kernel (interpret mode) against the XLA two-pass: ragged edges, more
+    programs than panels, single rows and columns."""
+    from adaprox_tpu.ops import kernels
+
+    rng = np.random.default_rng(700 + seed)
+    m, n = (int(v) for v in rng.integers(1, 160, size=2))
+    scale = 10.0 ** rng.uniform(-3, 3)
+    a = jnp.asarray(rng.standard_normal((m, n)) * scale, jnp.float32)
+    b = jnp.asarray(rng.standard_normal(m) * scale, jnp.float32)
+    x = jnp.asarray(rng.standard_normal(n), jnp.float32)
+    tm = int(rng.choice([1, 2, 4, 8]))
+    tn = int(rng.choice([16, 32, 64, 256]))
+    g = int(rng.integers(1, 9))
+    f_ref, g_ref = kernels.ls_value_grad_xla(a, b, x)
+    f_k, g_k = kernels.fused_ls_value_grad(a, b, x, interpret=True,
+                                           block_rows=tm, block_cols=tn,
+                                           programs=g)
+    assert np.isfinite(float(f_k)) and np.isfinite(np.asarray(g_k)).all()
+    np.testing.assert_allclose(float(f_k), float(f_ref), rtol=1e-5)
+    np.testing.assert_allclose(np.asarray(g_k), np.asarray(g_ref), rtol=1e-5,
+                               atol=1e-5 * float(jnp.max(jnp.abs(g_ref))))
 
 
 @pytest.mark.parametrize("seed", range(4))
@@ -105,13 +109,11 @@ def test_ell_operator_fuzz(seed):
 
 @pytest.mark.parametrize("seed", range(3))
 @pytest.mark.parametrize("scale", [1e-2, 1.0, 1e2])
-def test_resident_f0_family_fuzz(seed, scale):
-    """Badly scaled random instances through the f = 0 resident PD family
-    (Condat-Vu, MP t-sweep, AdaPDM+ t-sweep — the in-kernel linesearch
-    paths) for both h kinds: finite outputs, linesearch caps latched in
-    ls_failed rather than poisoning x."""
-    from adaprox_tpu.ops.resident import (
-        resident_adapdmp_sweep, resident_condat_vu, resident_mpls_sweep)
+def test_f0_family_fuzz(seed, scale):
+    """Badly scaled random instances through the f = 0 primal-dual family
+    (Condat-Vu, and the Malitsky-Pock and AdaPDM+ t-sweeps as vmapped
+    programs — the linesearch paths) for both h kinds: finite outputs."""
+    import jax
 
     rng = np.random.default_rng(500 + seed)
     m_, n_ = 32, 16
@@ -119,49 +121,46 @@ def test_resident_f0_family_fuzz(seed, scale):
     bv = jnp.asarray(rng.standard_normal(m_) * scale)
     ts = jnp.asarray(np.geomspace(0.1, 10.0, 5))
     na = float(np.linalg.norm(np.asarray(a)))
-    lam = 0.1 * scale
-    for h_kind in ("l2", "l1"):
-        x, _, nres, _, _ = resident_mpls_sweep(
-            a, bv, lam, ts, 1.0, 0.0, 60, h_kind=h_kind, interpret=True)
-        assert np.isfinite(np.asarray(x)).all(), (seed, scale, h_kind)
-        assert np.isfinite(np.asarray(nres)).all()
-        x, _, nres, _, _ = resident_adapdmp_sweep(
-            a, bv, lam, ts, na, 0.0, 60, h_kind=h_kind, interpret=True)
-        assert np.isfinite(np.asarray(x)).all(), (seed, scale, h_kind)
-        assert np.isfinite(np.asarray(nres)).all()
-        x, _, nres, _ = resident_condat_vu(
-            a, bv, lam, 1.0 / na, 0.99 / na, 0.0, 60, h_kind=h_kind,
-            interpret=True)
-        assert np.isfinite(np.asarray(x)).all(), (seed, scale, h_kind)
-        assert np.isfinite(float(nres))
+    x0, y0 = jnp.zeros(n_), jnp.zeros(m_)
+    for inner in (ap.L2Norm, ap.L1Norm):
+        kw = dict(f=ap.ZeroSmooth(), g=ap.L1Norm(lam=0.1 * scale),
+                  h=ap.Translate(inner=inner(lam=1.0), b=-bv),
+                  A=ap.DenseOperator(a=a), tol=0.0, maxit=60)
+        mp = jax.vmap(lambda t: ap.malitsky_pock(
+            x0, y0, sigma=1.0, t=t, **kw).x)(ts)
+        pdp = jax.vmap(lambda t: ap.adaptive_linesearch_primal_dual(
+            x0, y0, eta=na, t=t, **kw).x)(ts)
+        cv = ap.condat_vu(x0, y0, Lf=0.0, norm_A=na, **kw)
+        for x in (mp, pdp, cv.x):
+            assert np.isfinite(np.asarray(x)).all(), (seed, scale, inner)
+        assert np.isfinite(float(cv.norm_res))
 
 
 @pytest.mark.parametrize("seed", range(4))
 @pytest.mark.parametrize("scale", [1e-2, 1.0, 1e2])
-def test_resident_bt_fuzz(seed, scale):
-    """Badly scaled random instances through the resident backtracking /
-    aGRAAL kernels (interpret mode): finite outputs, consistent with the
-    prox-feasible set, trial caps surfaced rather than poisoning x."""
+def test_bt_fuzz(seed, scale):
+    """Badly scaled random instances through backtracking PG / Nesterov
+    (step deliberately 10x too large, xi = 1.5) and aGRAAL: finite
+    outputs, residuals finite, trial caps surfaced rather than poisoning
+    x."""
     import jax
-
-    from adaprox_tpu.ops.resident_bt import (resident_agraal,
-                                             resident_backtracking)
 
     rng = np.random.default_rng(300 + seed)
     m_, n_ = 32, 128
     a = jnp.asarray(rng.standard_normal((m_, n_)) * scale)
     b = jnp.asarray(rng.standard_normal(m_) * scale)
     lf = float(np.linalg.norm(np.asarray(a), 2) ** 2)
+    f = LeastSquares(a=a, b=b)
+    g = ap.L1Norm(lam=0.1 * scale**2)
     x0 = jnp.zeros(n_)
-    for nesterov in (False, True):
-        x, numit, nres, conv, lsf = resident_backtracking(
-            a, b, x0, 10.0 / lf, 0.0, 200, xi=1.5, nesterov=nesterov,
-            prox_kind="l1", p1=0.1 * scale**2, interpret=True)
-        assert np.isfinite(np.asarray(x)).all(), (seed, scale, nesterov)
-        assert np.isfinite(float(nres))
-    x0p = x0 + jax.random.normal(jax.random.PRNGKey(seed), x0.shape, x0.dtype)
-    x, numit, nres, conv = resident_agraal(
-        a, b, x0, x0p, 1.0 / lf, 0.0, 200, prox_kind="l1",
-        p1=0.1 * scale**2, interpret=True)
-    assert np.isfinite(np.asarray(x)).all(), (seed, scale)
-    assert np.isfinite(float(nres))
+    for res in (
+        ap.backtracking_proxgrad(x0, f=f, g=g, gamma0=10.0 / lf, xi=1.5,
+                                 tol=0.0, maxit=200),
+        ap.backtracking_nesterov(x0, f=f, g=g, gamma0=10.0 / lf, tol=0.0,
+                                 maxit=200),
+        ap.agraal(x0, f=f, g=g, gamma0=1.0 / lf, tol=0.0, maxit=200,
+                  x0=x0 + jax.random.normal(jax.random.PRNGKey(seed),
+                                            x0.shape, x0.dtype)),
+    ):
+        assert np.isfinite(np.asarray(res.x)).all(), (seed, scale)
+        assert np.isfinite(float(res.norm_res))

@@ -249,7 +249,7 @@ def test_log_barrier_prox_positive_root(rng):
 def test_log_barrier_prox_f32_large_negative_no_cancellation():
     """v + sqrt(v^2 + c) cancels catastrophically for large negative v in
     f32: the naive form returned y == 0 (and value inf) for v = -5e3,
-    violating the y > 0 guarantee and inf-poisoning TPU f32 solves
+    violating the y > 0 guarantee and inf-poisoning f32 solves
     (r3 ADVICE medium). The rationalized branch 2*gamma*mu/(r - v) must
     stay strictly positive and satisfy stationarity to f32 accuracy."""
     g = ap.LogBarrier(mu=0.4)

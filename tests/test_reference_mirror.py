@@ -3,7 +3,7 @@
 These mirrors transcribe the reference's iteration order and call sites
 (src/AdaProx.jl) in plain NumPy f64 — no JAX — and the compiled engine must
 reproduce their per-iteration gamma/x trajectories to float reassociation
-tolerance. This is the strongest check that the TPU engine implements the
+tolerance. This is the strongest check that the engine implements the
 same algorithm, not merely "an algorithm that also converges".
 """
 
@@ -652,3 +652,315 @@ def test_condat_vu_trajectory_matches_numpy_mirror():
     np.testing.assert_allclose(np.asarray(res.records.norm_res), r_np,
                                rtol=1e-6)
     np.testing.assert_allclose(np.asarray(res.x), x_np, rtol=1e-6, atol=1e-10)
+
+
+# --- the engine on the problems the old whole-solve kernels covered ---------
+#
+# Dual SVM (dense Gram and factored), logistic regression, the cubic model,
+# Condat-Vu with an L1 inner term, the Malitsky-Pock and AdaPDM+ t-sweeps
+# as ONE vmapped program, and bf16 storage — each against the f64 NumPy
+# mirror of the reference loop.
+
+
+def _dsvm(seed=3, n=24, d=5):
+    rng = np.random.default_rng(seed)
+    feats = rng.standard_normal((n, d))
+    labels = np.sign(rng.standard_normal(n))
+    labels[labels == 0] = 1
+    bmat = labels[:, None] * feats
+    return bmat, labels
+
+
+@pytest.mark.parametrize("t", [0.05, 0.5, 2.0, 10.0])
+@pytest.mark.parametrize("form", ["dense", "factored"])
+def test_dsvm_tsweep_matches_numpy_mirror(form, t):
+    """Dual-SVM AdaPDM rows of the reference t-grid (dual_svm/runme.jl:61),
+    Gram dense (Quadratic) or gram-free (FactoredQuadratic), against the
+    mirror on the explicit Gram."""
+    from adaprox_tpu.models.objectives import FactoredQuadratic
+
+    bmat, labels = _dsvm()
+    q = bmat @ bmat.T
+    qv = -np.ones(q.shape[0])
+    big_c, iters = 0.5, 60
+    norm_a = float(np.linalg.norm(labels))
+    gammas_np, res_np = np_adaptive_pd(q, qv, labels, big_c, t, norm_a, iters)
+    f = (Quadratic(q_mat=jnp.asarray(q), q_vec=jnp.asarray(qv)) if form == "dense"
+         else FactoredQuadratic(b_mat=jnp.asarray(bmat), q_vec=jnp.asarray(qv)))
+    res = ap.adaptive_primal_dual(
+        jnp.zeros(q.shape[0]), jnp.zeros(1), f=f,
+        g=ap.IndBox(lo=0.0, hi=big_c), h=ap.IndZero(),
+        A=ap.DenseOperator(a=jnp.asarray(labels[None, :])),
+        rule=ap.AdaPGMRule.make(t=t, norm_a=norm_a),
+        tol=0.0, maxit=iters, history=True)
+    np.testing.assert_allclose(np.asarray(res.records.gamma), gammas_np, rtol=1e-7)
+    np.testing.assert_allclose(np.asarray(res.records.norm_res), res_np,
+                               rtol=1e-6, atol=1e-12)
+
+
+def np_adaptive_proxgrad_grad(grad, n, prox, gamma0, rule_update, state0, iters):
+    """np_adaptive_proxgrad for any gradient and prox (same loop)."""
+    x = np.zeros(n)
+    gamma, state = gamma0, state0
+    g = grad(x)
+    v = x - gamma * g
+    x_prev, g_prev = x, g
+    x = prox(v, gamma)
+    gammas = []
+    for _ in range(iters):
+        g_x = grad(x)
+        gamma, state = rule_update(state, x, g_x, x_prev, g_prev)
+        v = x - gamma * g_x
+        x_prev, g_prev = x, g_x
+        x = prox(v, gamma)
+        gammas.append(gamma)
+    return np.array(gammas), x
+
+
+def _rule(rule_name, gamma0):
+    if rule_name == "ours":
+        return np_adapgm_rule, (gamma0, gamma0), ap.AdaPGMRule(gamma=gamma0)
+    return np_mm_rule, (gamma0, np.inf), ap.MalitskyMishchenkoRule(gamma=gamma0)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("rule_name", ["ours", "mm"])
+def test_logreg_trajectory_matches_numpy_mirror(rule_name, seed):
+    """L1 logistic regression (sparse_logreg/runme.jl:23-39, bias folded in
+    the last coordinate) under both adaptive rules."""
+    from adaprox_tpu.models.objectives import LogisticLoss
+
+    rng = np.random.default_rng(seed)
+    m, d = 60, 12
+    xm = rng.standard_normal((m, d))
+    y = (rng.random(m) > 0.5).astype(float)
+    # 15 iterations: the residual reaches ~1e-7 there; past the f64 floor
+    # the rule's ratios are ratios of rounding noise and trajectories part
+    lam, iters = 0.01, 15
+
+    def grad(w):
+        p = 1.0 / (1.0 + np.exp(-(xm @ w[:-1] + w[-1])))
+        return np.concatenate([xm.T @ (p - y) / m, [np.mean(p - y)]])
+
+    x1 = np.hstack([xm, np.ones((m, 1))])
+    gamma0 = 4 * m / np.linalg.norm(x1.T @ x1)
+    np_rule, state0, jx_rule = _rule(rule_name, gamma0)
+    g_np, x_np = np_adaptive_proxgrad_grad(
+        grad, d + 1, lambda v, gam: soft(v, gam * lam), gamma0, np_rule,
+        state0, iters)
+    res = ap.adaptive_proxgrad(
+        jnp.zeros(d + 1), f=LogisticLoss(x=jnp.asarray(xm), y=jnp.asarray(y)),
+        g=ap.L1Norm(lam=lam), rule=jx_rule, tol=0.0, maxit=iters, history=True)
+    np.testing.assert_allclose(np.asarray(res.records.gamma), g_np, rtol=1e-7)
+    np.testing.assert_allclose(np.asarray(res.x), x_np, rtol=1e-6, atol=1e-10)
+
+
+@pytest.mark.parametrize("c", [0.0, 1.0])
+@pytest.mark.parametrize("rule_name", ["ours", "mm"])
+def test_cubic_trajectory_matches_numpy_mirror(rule_name, c):
+    """The cubic model (cubic_sparse_logreg/runme.jl:26-32; c = 0 is the
+    plain quadratic of nesterov_worst_case) with g = 0."""
+    from adaprox_tpu.models.objectives import Cubic
+
+    rng = np.random.default_rng(4)
+    n = 20
+    r = rng.standard_normal((n, n))
+    q = r @ r.T / n + 0.1 * np.eye(n)
+    qv = rng.standard_normal(n)
+    iters = 15  # before the residual reaches the f64 floor (see logreg)
+
+    def grad(x):
+        return q @ x + qv + (c * np.linalg.norm(x) / 2) * x
+
+    gamma0 = 0.5 / np.linalg.norm(q, 2)
+    np_rule, state0, jx_rule = _rule(rule_name, gamma0)
+    g_np, x_np = np_adaptive_proxgrad_grad(
+        grad, n, lambda v, gam: v, gamma0, np_rule, state0, iters)
+    res = ap.adaptive_proxgrad(
+        jnp.zeros(n), f=Cubic(q_mat=jnp.asarray(q), q_vec=jnp.asarray(qv),
+                              c=jnp.asarray(c)),
+        g=ap.Zero(), rule=jx_rule, tol=0.0, maxit=iters, history=True)
+    np.testing.assert_allclose(np.asarray(res.records.gamma), g_np, rtol=1e-7)
+    np.testing.assert_allclose(np.asarray(res.x), x_np, rtol=1e-6, atol=1e-10)
+
+
+def np_prox_translate_l1_conj(w, sigma, b):
+    """prox of (Translate(NormL1, b))^* via Moreau (cf. the L2 version)."""
+    u = w / sigma
+    inner = soft(u + b, 1.0 / sigma) - b
+    return w - sigma * inner
+
+
+@pytest.mark.parametrize("seed", [5, 6])
+def test_condat_vu_l1_inner_matches_numpy_mirror(seed):
+    """Condat-Vu on the least-absolute-deviation shape: h = Translate(L1)."""
+    rng = np.random.default_rng(seed)
+    m, n = 20, 30
+    a_f = rng.standard_normal((m, n))
+    b_f = rng.standard_normal(m)
+    a = rng.standard_normal((m, n))
+    yv = rng.standard_normal(m)
+    lam, iters = 0.3, 50
+    lf = np.linalg.norm(a_f, 2) ** 2
+    par, par2 = 5.0, 100.0
+    norm_a = np.linalg.norm(a)
+    alpha = 1.0 if norm_a > par * lf else par2 * norm_a / lf
+    gamma = 1.0 / (lf / 2 + norm_a / alpha)
+    sigma = 0.99 / (norm_a * alpha)
+    grad = lambda v: a_f.T @ (a_f @ v - b_f)
+    x, y = np.zeros(n), np.zeros(m)
+    a_x, grad_x, at_y = a @ x, grad(x), a.T @ y
+    v = x - gamma * (grad_x + at_y)
+    a_x_prev = a_x
+    x = soft(v, gamma * lam)
+    nres = []
+    for _ in range(iters):
+        a_x, grad_x = a @ x, grad(x)
+        primal = (v - x) / gamma + grad_x + at_y
+        w = y + sigma * (2 * a_x - a_x_prev)
+        y = np_prox_translate_l1_conj(w, sigma, -yv)
+        dual = (w - y) / sigma - a_x
+        nres.append(np.sqrt(primal @ primal + dual @ dual))
+        at_y = a.T @ y
+        v = x - gamma * (grad_x + at_y)
+        a_x_prev = a_x
+        x = soft(v, gamma * lam)
+    res = ap.condat_vu(
+        jnp.zeros(n), jnp.zeros(m),
+        f=LeastSquares(a=jnp.asarray(a_f), b=jnp.asarray(b_f)),
+        g=ap.L1Norm(lam=lam),
+        h=ap.Translate(inner=ap.L1Norm(lam=1.0), b=-jnp.asarray(yv)),
+        A=ap.DenseOperator(a=jnp.asarray(a)), Lf=lf,
+        tol=0.0, maxit=iters, history=True)
+    np.testing.assert_allclose(np.asarray(res.records.norm_res), nres, rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(res.x), x, rtol=1e-6, atol=1e-10)
+
+
+def _pd_linesearch_problem(seed):
+    rng = np.random.default_rng(seed)
+    m, n = 40, 64
+    a = rng.standard_normal((m, n)) / np.sqrt(n)
+    yv = rng.standard_normal(m)
+    a_f = rng.standard_normal((20, n)) / np.sqrt(n)
+    b_f = rng.standard_normal(20)
+    return a, yv, a_f, b_f
+
+
+def _pd_parts(a, yv, a_f, b_f, lam):
+    return dict(f=LeastSquares(a=jnp.asarray(a_f), b=jnp.asarray(b_f)),
+                g=ap.L1Norm(lam=lam),
+                h=ap.Translate(inner=ap.L2Norm(lam=1.0), b=-jnp.asarray(yv)),
+                A=ap.DenseOperator(a=jnp.asarray(a)))
+
+
+TS = [0.2, 1.0, 5.0]
+
+
+@pytest.mark.parametrize("i", range(len(TS)))
+def test_mp_tsweep_vmapped_matches_numpy_mirror(i):
+    """The Malitsky-Pock t-sweep as ONE vmapped program: row i against the
+    mirror at t = TS[i] (trial counts included)."""
+    import jax
+
+    a, yv, a_f, b_f = _pd_linesearch_problem(11)
+    m, n = a.shape
+    lam, iters = 0.05, 40
+    sigma0 = 2.0 / float(np.linalg.norm(a, 2))
+    parts = _pd_parts(a, yv, a_f, b_f, lam)
+
+    def one(t):
+        res = ap.malitsky_pock(jnp.zeros(n), jnp.zeros(m), sigma=sigma0, t=t,
+                               tol=0.0, maxit=iters, history=True, **parts)
+        return res.records.gamma, res.records.A_evals, res.x
+
+    gam, a_ev, xs = jax.vmap(one)(jnp.asarray(TS))
+    g_np, _, _, a_np, _, x_np = np_malitsky_pock(
+        a_f, b_f, lam, yv, a, np.zeros(n), np.zeros(m), sigma0, TS[i], iters)
+    np.testing.assert_allclose(np.asarray(gam[i]), g_np, rtol=1e-7)
+    np.testing.assert_array_equal(np.asarray(a_ev[i]), a_np)
+    np.testing.assert_allclose(np.asarray(xs[i]), x_np, rtol=1e-6, atol=1e-9)
+
+
+@pytest.mark.parametrize("i", range(len(TS)))
+def test_adapdm_plus_tsweep_vmapped_matches_numpy_mirror(i):
+    """The AdaPDM+ t-sweep as ONE vmapped program, row i against the
+    mirror at t = TS[i] with eta underestimated (inflation exercised)."""
+    import jax
+
+    a, yv, a_f, b_f = _pd_linesearch_problem(7)
+    m, n = a.shape
+    lam, iters = 0.05, 40
+    eta0 = 0.3 * float(np.linalg.norm(a, 2))
+    parts = _pd_parts(a, yv, a_f, b_f, lam)
+
+    def one(t):
+        res = ap.adaptive_linesearch_primal_dual(
+            jnp.zeros(n), jnp.zeros(m), eta=eta0, t=t, tol=0.0, maxit=iters,
+            history=True, **parts)
+        return res.records.gamma, res.records.At_evals, res.x
+
+    gam, at_ev, xs = jax.vmap(one)(jnp.asarray(TS))
+    g_np, _, _, _, at_np, x_np = np_adapdm_plus(
+        a_f, b_f, lam, yv, a, np.zeros(n), np.zeros(m), eta0, TS[i], iters)
+    np.testing.assert_allclose(np.asarray(gam[i]), g_np, rtol=1e-7)
+    np.testing.assert_array_equal(np.asarray(at_ev[i]), at_np)
+    np.testing.assert_allclose(np.asarray(xs[i]), x_np, rtol=1e-6, atol=1e-9)
+
+
+# bf16 storage: the matrix is stored in bf16, iterates and accumulation are
+# f32. The mirror runs in f64 on the SAME bf16-rounded matrix, so the only
+# difference is f32 arithmetic, which the adaptive rule amplifies through
+# its gradient-difference ratios: 2e-3 relative over these short runs.
+BF16_RTOL = 2e-3
+
+
+def _bf16_round(a):
+    return np.asarray(jnp.asarray(a, jnp.bfloat16).astype(jnp.float64))
+
+
+@pytest.mark.parametrize("rule_name", ["ours", "mm"])
+def test_bf16_storage_pg_matches_numpy_mirror(rule_name):
+    rng = np.random.default_rng(2)
+    m, n = 30, 50
+    a = _bf16_round(rng.standard_normal((m, n)))
+    b = rng.standard_normal(m).astype(np.float32).astype(np.float64)
+    lam, iters = 0.3, 20
+    gamma0 = 1.0 / np.linalg.norm(a, 2) ** 2
+    np_rule, state0, _ = _rule(rule_name, gamma0)
+    g_np, xs_np = np_adaptive_proxgrad(a, b, lam, gamma0, np_rule, state0, iters)
+    jx_rule = (ap.AdaPGMRule(gamma=jnp.float32(gamma0)) if rule_name == "ours"
+               else ap.MalitskyMishchenkoRule(gamma=jnp.float32(gamma0)))
+    res = ap.adaptive_proxgrad(
+        jnp.zeros(n, jnp.float32),
+        f=LeastSquares(a=jnp.asarray(a, jnp.bfloat16), b=jnp.asarray(b, jnp.float32)),
+        g=ap.L1Norm(lam=jnp.float32(lam)), rule=jx_rule, tol=0.0, maxit=iters,
+        history=True)
+    assert res.x.dtype == jnp.float32
+    np.testing.assert_allclose(np.asarray(res.records.gamma), g_np, rtol=BF16_RTOL)
+    np.testing.assert_allclose(np.asarray(res.x), xs_np[-1], rtol=BF16_RTOL,
+                               atol=1e-5)
+
+
+def test_bf16_storage_dsvm_matches_numpy_mirror():
+    from adaprox_tpu.models.objectives import FactoredQuadratic
+
+    bmat, labels = _dsvm(seed=8)
+    bmat = _bf16_round(bmat)
+    q = bmat @ bmat.T
+    qv = -np.ones(q.shape[0])
+    big_c, t, iters = 0.5, 1.0, 40
+    norm_a = float(np.linalg.norm(labels))
+    gammas_np, res_np = np_adaptive_pd(q, qv, labels, big_c, t, norm_a, iters)
+    f32 = jnp.float32
+    res = ap.adaptive_primal_dual(
+        jnp.zeros(q.shape[0], f32), jnp.zeros(1, f32),
+        f=FactoredQuadratic(b_mat=jnp.asarray(bmat, jnp.bfloat16),
+                            q_vec=jnp.asarray(qv, f32)),
+        g=ap.IndBox(lo=0.0, hi=big_c), h=ap.IndZero(),
+        A=ap.DenseOperator(a=jnp.asarray(labels[None, :], f32)),
+        rule=ap.AdaPGMRule.make(t=f32(t), norm_a=f32(norm_a)),
+        tol=0.0, maxit=iters, history=True)
+    np.testing.assert_allclose(np.asarray(res.records.gamma), gammas_np,
+                               rtol=BF16_RTOL)
+    np.testing.assert_allclose(np.asarray(res.records.norm_res), res_np,
+                               rtol=1e-3, atol=1e-5)

@@ -133,8 +133,8 @@ def test_logistic_sharded_matches_single():
 
 
 def test_row_sharded_fused_oracle(problem):
-    """shard_map + fused Pallas kernel + psum partials: the sharded fused
-    oracle must match the XLA reference and drive a solve."""
+    """shard_map + the one-pass kernel (interpret mode) + psum partials: the
+    sharded fused oracle must match the XLA reference and drive a solve."""
     from adaprox_tpu.ops import kernels
     from adaprox_tpu.parallel.fused import row_sharded_fused_ls
 
@@ -142,7 +142,7 @@ def test_row_sharded_fused_oracle(problem):
     b = jnp.asarray(problem.b, jnp.float32)
     x = jnp.asarray(np.linspace(-1, 1, a.shape[1]), jnp.float32)
     mesh = make_mesh((8, 1))
-    f = row_sharded_fused_ls(a, b, mesh)
+    f = row_sharded_fused_ls(a, b, mesh, interpret=True)
     v, g = f.value_and_grad(x)
     vr, gr = kernels.ls_value_grad_xla(a, b, x)
     np.testing.assert_allclose(float(v), float(vr), rtol=1e-5)
@@ -162,32 +162,3 @@ def test_row_sharded_fused_oracle(problem):
         rule=ap.AdaPGMRule(gamma=jnp.float32(1e-3)), tol=1e-4, maxit=2000,
     )
     np.testing.assert_allclose(np.asarray(res.x), np.asarray(ref.x), rtol=1e-3, atol=1e-4)
-
-
-def test_row_sharded_fused_logistic_matches_dense():
-    """Sharded fused logistic oracle (shard_map + psum of the mean-partials)
-    == single-device LogisticLoss value/grad, and drives the solver."""
-    import numpy as np
-
-    import adaprox_tpu as ap
-    from adaprox_tpu.models.objectives import LogisticLoss
-    from adaprox_tpu.parallel.fused import row_sharded_fused_logistic
-    from adaprox_tpu.parallel.mesh import make_mesh
-    from adaprox_tpu.utils.datasets import synthetic_classification
-
-    x_np, y_np = synthetic_classification(256, 128, seed=4, dtype=np.float64)
-    mesh = make_mesh((len(jax.devices()), 1))
-    f_sh = row_sharded_fused_logistic(jnp.asarray(x_np), jnp.asarray(y_np), mesh)
-    f_ref = LogisticLoss(x=jnp.asarray(x_np), y=jnp.asarray(y_np))
-    w = jnp.asarray(np.random.default_rng(0).standard_normal(129))
-    v1, g1 = f_ref.value_and_grad(w)
-    v2, g2 = f_sh.value_and_grad(w)
-    np.testing.assert_allclose(float(v2), float(v1), rtol=1e-9)
-    np.testing.assert_allclose(np.asarray(g2), np.asarray(g1), rtol=1e-8, atol=1e-10)
-
-    kw = dict(g=ap.L1Norm(lam=0.01), rule=ap.AdaPGMRule(gamma=1.0),
-              tol=1e-7, maxit=400)
-    r1 = ap.adaptive_proxgrad(jnp.zeros(129), f=f_ref, **kw)
-    r2 = ap.adaptive_proxgrad(jnp.zeros(129), f=f_sh, **kw)
-    np.testing.assert_allclose(np.asarray(r2.x), np.asarray(r1.x),
-                               rtol=1e-5, atol=1e-7)

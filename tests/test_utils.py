@@ -62,12 +62,10 @@ def test_api_doc_symbols_exist():
             if sym and sym.isidentifier():
                 assert hasattr(mod, sym), f"{mod_path}.{sym} absent (API.md)"
 
-    # resident kernel names listed in the resident section
-    from adaprox_tpu.ops import resident, resident_bt
-
-    for nm in re.findall(r"\b(resident_[a-z0-9_]+)\b", text):
-        assert hasattr(resident, nm) or hasattr(resident_bt, nm) or nm in (
-            "resident_bt",), f"ops.resident(.bt).{nm} absent (API.md)"
+    # removed modules must not be documented as API
+    for gone in ("ops.resident", "pd_kernels", "pd_fused", "bcsr_matvec(",
+                 "ell_matvec_pallas", "fused_logistic"):
+        assert gone not in text, f"API.md documents removed {gone}"
 
     # objectives named in the models section
     from adaprox_tpu.models import objectives as ob
@@ -190,7 +188,7 @@ def test_libsvm_loader(tmp_path):
     # label remap to {0,1} (libsvm.jl:41-56)
     x2, y2 = load_libsvm_dataset(p, labels=(0.0, 1.0))
     np.testing.assert_allclose(y2, [1, 0, 1])
-    # padding for TPU tiles
+    # zero padding to a block multiple
     x3, y3, m, n = load_libsvm_dataset(p, pad_to=8)
     assert x3.shape == (8, 8) and (m, n) == (3, 3)
     np.testing.assert_allclose(x3[:3, :3], x)

@@ -14,7 +14,7 @@ the process decomposition changes), so
     efficiency(N) = t(1 process) / t(N processes)
 
 isolates exactly the process-boundary cost the SCALING.md analytic model
-claims is negligible for sweep parallelism. NOT a TPU number — CPU
+claims is negligible for sweep parallelism. NOT a GPU number — CPU
 devices behind a distributed service — but it validates the claimed
 near-linear sweep scaling with a real multi-process measurement instead
 of an argument.
@@ -91,7 +91,6 @@ def main():
             "t_count": payload["t_count"],
             "timed_s": t,
             "efficiency_vs_1proc": round(base / t, 4),
-            "numit": payload["numit"][:4],
         }
         rows[nproc] = row
         print(json.dumps(row), flush=True)
